@@ -1,2 +1,2 @@
-"""Benchmark harnesses (importable so multi-process workers can reuse the
-workload builders, e.g. ``benchmarks.scaling_curve.make_workload``)."""
+"""Benchmark harnesses (importable so ``chip_smoke.py`` and the tests can
+reuse the workload builders, e.g. ``benchmarks.solver_engines.make_batch``)."""

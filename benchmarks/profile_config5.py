@@ -1,74 +1,42 @@
-"""Per-stage wall-clock attribution of bench config#5 (5k-KF monocular) —
-VERDICT r4 next #3: where do the ~19 ms/KF go?
+"""Per-stage wall-clock attribution of bench config#5 (5k-KF monocular):
+where do the milliseconds per keyframe go?
 
-Drives the EXACT bench_config5 workload on the session TPU with the
-engine's hierarchical profiler on, then prints:
+Drives the exact ``bench.py`` config#5 workload (``bench.config5_setup``
+and ``bench.drive_config5``: same world, engine parameters and periodic
+PGOs, then the terminal ``optimize_global(use_edge_info=True)``), then
+prints:
 
-* the profiler mean/min/max table (alloc / ecp / closure_bootstrap /
-  ingest / window_build / device_step ...);
+* the engine profiler's mean/min/max table (alloc / ecp /
+  closure_bootstrap / ingest / window_build / device_step ...);
 * the device-master mirror sync stats (prefetch hits vs blocking misses);
 * wall-clock shares: incremental loop vs periodic PGOs vs terminal PGO.
 
-The numbers land in BASELINE.md's config#5 attribution table.
-
-Run: python benchmarks/profile_config5.py [K]     (TPU; ~4 min at 5k)
+Run: python benchmarks/profile_config5.py [K]
 """
 
 from __future__ import annotations
 
+import pathlib
 import sys
 import time
 
-import numpy as np
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 
 def main(K: int = 5000) -> None:
-    import os
+    import bench
+    from srba_tpu.utils.compile_cache import enable_compile_cache
+    from srba_tpu.utils.datasets import ate_rmse
+    from srba_tpu.utils.devices import device_record
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    from srba_tpu import Observation, SrbaEngine, SrbaParams
-    from srba_tpu.ecps import LocalAreasFixedGrid
-    from srba_tpu.models.noise import NoiseIdentity
-    from srba_tpu.models.observations import CameraCalib
-    from srba_tpu.models.sensor_pose import SensorPoseSE3
-    from srba_tpu.ops.np_lie import CAMERA_SENSOR_POSE_SE3
-    from srba_tpu.utils.datasets import (ate_rmse, make_world_loop_3d_large,
-                                         observe_sparse)
-
-    world = make_world_loop_3d_large(num_kfs=K, radius=30.0,
-                                     num_landmarks=1200, revolutions=2.5,
-                                     seed=7)
-    calib = CameraCalib.make()
-    ds = observe_sparse(world, "MonocularCamera", calib=calib, noise_std=0.3,
-                        sensor_range=7.0, odo_noise_std=0.005, seed=7)
-    eng = SrbaEngine(
-        "MonocularCamera", calib=calib, noise=NoiseIdentity(0.3),
-        sensor_pose=SensorPoseSE3(CAMERA_SENSOR_POSE_SE3),
-        ecp=LocalAreasFixedGrid(submap_size=10,
-                                min_obs_count_loop_closure=6),
-        params=SrbaParams(max_tree_depth=3, max_optimize_depth=2,
-                          use_robust_kernel=True, kernel_param=3.0,
-                          extra_obs_per_lm_cap=4))
-
-    t_pgo_mid = 0.0
-    t0 = time.perf_counter()
-    for k, frame in enumerate(ds.frames):
-        obs = [Observation(lm_id=m, z=z) for m, z in frame]
-        eng.define_new_keyframe(
-            obs, edge_init={k - 1: ds.odometry[k - 1]} if k else None)
-        if k and k % 1250 == 0:
-            t1 = time.perf_counter()
-            eng.optimize_global(periodic=True)
-            t_pgo_mid += time.perf_counter() - t1
-    eng.fence()
-    dt_inc = time.perf_counter() - t0
+    enable_compile_cache()
+    print(f"device: {device_record()}")
+    world, ds, make_engine = bench.config5_setup(K)
+    eng = make_engine()
+    dt_inc, t_pgo_mid = bench.drive_config5(eng, ds)
 
     t0 = time.perf_counter()
-    G, info = eng.optimize_global()
+    G, info = eng.optimize_global(use_edge_info=True)
     dt_term = time.perf_counter() - t0
     ate = float(ate_rmse(G[:, :3], world.gt_poses[:, :3]))
 

@@ -20,14 +20,14 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="srba_slam",
-        description="TPU-native SRBA: run SLAM over a dataset file or a "
-                    "synthetic world.")
+        description="SRBA: run SLAM over a dataset file or a synthetic "
+                    "world.")
     src = p.add_argument_group("input")
     src.add_argument("--dataset", help="dataset text file (see io.dataset_io)")
     src.add_argument("--pgo-g2o", metavar="FILE",
                      help="standalone pose-graph mode: load a g2o text "
                           "pose graph (VERTEX/EDGE SE2 or SE3:QUAT), run "
-                          "the TPU-native global PGO, print the error "
+                          "the global PGO, print the error "
                           "summary; write the optimized graph with "
                           "--export-g2o.  Lets public benchmarks "
                           "(sphere2500, manhattan, ...) drive the solver "
@@ -132,9 +132,10 @@ def build_parser() -> argparse.ArgumentParser:
                      help="print final summary as one JSON line")
     out.add_argument("--verbose", type=int, default=0)
     out.add_argument("--jax-cache", metavar="DIR", default=None,
-                     help="enable the persistent XLA compilation cache at "
-                          "DIR (repeat runs skip the 20-40s per-shape "
-                          "compiles; standard production setup)")
+                     help="persistent XLA compilation cache directory when "
+                          "JAX_COMPILATION_CACHE_DIR is unset (default: "
+                          "<repo>/.jax_cache); repeat runs skip the "
+                          "per-shape compiles")
     return p
 
 
@@ -303,10 +304,8 @@ def _run_pgo_g2o(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.jax_cache:
-        import jax
-        jax.config.update("jax_compilation_cache_dir", args.jax_cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from srba_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache(args.jax_cache)
     if args.pgo_g2o:
         return _run_pgo_g2o(args)
     from srba_tpu.engine.engine import Observation

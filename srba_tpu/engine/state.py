@@ -1,4 +1,4 @@
-"""Problem state: the TPU-native redesign of the reference's
+"""Problem state: the batched-device redesign of the reference's
 ``TRBA_Problem_state`` (public MRPT/srba layout: ``include/srba/srba_types.h``;
 SURVEY.md Appendix A).
 

@@ -6,14 +6,14 @@ Reference analog (public MRPT/srba layout; SURVEY.md §3, §4.4):
 incremental updates in ``include/srba/impl/spantree_misc.h`` /
 ``spantree_update_numeric.h``.
 
-TPU-native split: this module owns only the **symbolic** side (pure int
+Host/device split: this module owns only the **symbolic** side (pure int
 bookkeeping — which edges lie on the bounded shortest path between two nearby
 KFs, which fixes Jacobian sparsity).  The **numeric** side (composing relative
 poses along those paths) lives on device: the solver gathers edge poses by the
 index lists produced here and composes them inside the jitted program, so the
 reference's hottest maintenance loop (``update_numeric``) disappears as a
 separate phase entirely — paths are recomposed from current edge values on
-every residual evaluation at negligible cost on the VPU.
+every residual evaluation at negligible cost.
 
 Invariant exploited throughout (SURVEY.md §4.4): the KF graph is append-only
 (edges are never removed), so per-KF BFS caches can only be *invalidated into

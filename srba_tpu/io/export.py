@@ -4,7 +4,7 @@ MRPT/srba layout; SURVEY.md L7): ``save_graph_as_dot`` (``impl/export_dot.h``),
 which feeds MRPT's offline global graph-SLAM), and
 ``build_opengl_representation`` (``impl/export_opengl.h``).
 
-TPU-native stance: all exporters are host-side, read-only debug/interchange
+Stance: all exporters are host-side, read-only debug/interchange
 paths — plain Python over the SoA state.  The graph-SLAM export writes the
 portable g2o text format (``VERTEX_SE2``/``EDGE_SE2`` and
 ``VERTEX_SE3:QUAT``/``EDGE_SE3:QUAT``) instead of MRPT's binary classes, so

@@ -9,7 +9,7 @@ this module is the importer: it parses ``VERTEX_SE2``/``EDGE_SE2`` and
 ``VERTEX_SE3:QUAT``/``EDGE_SE3:QUAT`` records into the same problem dict
 :func:`srba_tpu.io.export.get_global_graphslam_problem` produces, so any
 public pose-graph benchmark (sphere2500, manhattan3500, intel, ...) can be
-fed straight into the TPU-native global optimizer
+fed straight into the global optimizer
 (:func:`srba_tpu.solver.global_graphslam.optimize_global_pose_graph`) —
 the only externally-anchored validation path available while the reference
 mount is empty.

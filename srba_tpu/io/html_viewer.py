@@ -2,7 +2,7 @@
 analog of the reference's live OpenGL window (``srba-slam --gui`` +
 ``mrpt-gui``, public MRPT/srba layout; SURVEY.md L7).
 
-The TPU fleet has no display and no network, so instead of a GUI process
+Compute hosts have no display, so instead of a GUI process
 the engine's scene dict (:func:`srba_tpu.io.export.build_opengl_representation`)
 is baked into ONE standalone HTML file: embedded JSON + a dependency-free
 canvas renderer (~150 lines of vanilla JS, no CDN) with orbit / zoom / pan

@@ -2,7 +2,7 @@
 (``build_opengl_representation`` consumed by ``mrpt-gui`` 3D windows;
 ``impl/export_opengl.h``, public MRPT/srba layout; SURVEY.md L7).
 
-Host-side and offline by design: the TPU engine has no display attached, so
+Host-side and offline by design: a compute host has no display attached, so
 the renderer draws the backend-neutral scene dict of
 :func:`srba_tpu.io.export.build_opengl_representation` to PNG with
 matplotlib — a top-down (XY) view for SE(2) maps, a 3D axes view for SE(3) —

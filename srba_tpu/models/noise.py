@@ -2,7 +2,7 @@
 ``options::observation_noise_identity`` / ``observation_noise_constant_matrix``
 (public MRPT/srba layout: ``include/srba/options/obs_noise_*.h``; SURVEY.md §3).
 
-TPU-native formulation: instead of carrying an information matrix ``Lambda``
+Formulation: instead of carrying an information matrix ``Lambda``
 into the normal equations (``J^T Lambda J``), every noise model produces a
 static **whitening matrix** ``W = Lambda^{1/2}`` (Cholesky factor of the
 information matrix).  Residual rows and Jacobian rows are multiplied by ``W``

@@ -1,6 +1,6 @@
 // srba_tpu native host graph service — C++ symbolic core.
 //
-// TPU-native equivalent of the reference's host-side spanning-tree /
+// Equivalent of the reference's host-side spanning-tree /
 // window-selection machinery (public MRPT/srba layout: the TSpanningTree
 // symbolic structures of include/srba/srba_types.h, the incremental updates
 // of impl/spantree_misc.h, and the window selection at the top of

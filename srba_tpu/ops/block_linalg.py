@@ -1,19 +1,13 @@
-"""Batched small-block dense linear algebra, TPU-tuned.
+"""Batched small-block dense linear algebra.
 
 SRBA's device programs are full of [B, d, d] blocks with d ∈ {2, 3, 6}:
 landmark Hessian blocks (Schur), block-Jacobi preconditioners (global PGO).
-``jnp.linalg.inv`` on such stacks lowers to a batched LU routine that
-serializes per matrix — measured 34.5 ms for [20k, 6, 6] on the session TPU,
-~300x off speed-of-light for the ~10 MFLOP involved.
 
-The fix is layout, not math: treat the batch as the vector dimension and the
-d×d structure as ~d²/2 SCALAR streams — an unrolled Cholesky factorization /
+The batched inverse treats the batch as the vector dimension and the d×d
+structure as ~d²/2 SCALAR streams — an unrolled Cholesky factorization /
 triangular inversion whose every operation is an elementwise op on a [B]
-vector.  The VPU (8×128 lanes) eats this; XLA fuses the unrolled graph into a
-handful of kernels.  A Pallas kernel variant fuses it into exactly ONE kernel
-(one HBM read of the input tile, one write of the output tile) — used on TPU
-above a size threshold; the unrolled-jnp version is the portable reference
-(CPU-testable, used everywhere else).
+vector, which XLA fuses into a handful of elementwise kernels.  It is plain
+``jnp``; no hand-written kernel.
 
 Reference analog: the reference's Schur complement inverts landmark blocks
 with Eigen fixed-size routines (impl/schur.h, public MRPT/srba layout) —
@@ -22,9 +16,6 @@ same spirit (compile-time-unrolled small algebra), different batching axis.
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 
 
@@ -77,88 +68,22 @@ def spd_inverse_unrolled(m: jnp.ndarray) -> jnp.ndarray:
     return jnp.stack(rows, axis=-2)
 
 
-# ---------------------------------------------------------------------------
-# Pallas kernel variant: one fused VMEM-resident kernel per tile of the batch.
-# ---------------------------------------------------------------------------
-
-def _spd_inverse_kernel(d):
-    def kernel(m_ref, out_ref):
-        # m_ref: [d*d, TB] tile — streams-major so the BATCH rides the 128-
-        # lane dimension; every operation below is a [TB]-wide vector op.
-        L = {}
-        for i in range(d):
-            for j in range(i + 1):
-                s = m_ref[i * d + j, :]
-                for k in range(j):
-                    s = s - L[(i, k)] * L[(j, k)]
-                if i == j:
-                    L[(i, j)] = jnp.sqrt(s)
-                else:
-                    L[(i, j)] = s / L[(j, j)]
-        Li = {}
-        for j in range(d):
-            Li[(j, j)] = 1.0 / L[(j, j)]
-            for i in range(j + 1, d):
-                s = L[(i, j)] * Li[(j, j)]
-                for k in range(j + 1, i):
-                    s = s + L[(i, k)] * Li[(k, j)]
-                Li[(i, j)] = -s / L[(i, i)]
-        for i in range(d):
-            for j in range(d):
-                s = None
-                for k in range(max(i, j), d):
-                    t = Li[(k, i)] * Li[(k, j)]
-                    s = t if s is None else s + t
-                out_ref[i * d + j, :] = s
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnums=(1,))
-def _spd_inverse_pallas_impl(m2: jnp.ndarray, d: int) -> jnp.ndarray:
-    from jax.experimental import pallas as pl
-
-    B = m2.shape[1]
-    TB = 2048                      # lane tile: [d*d, 2048] ≈ 288 KB VMEM @ d=6
-    grid = (B // TB,)
-    return pl.pallas_call(
-        _spd_inverse_kernel(d),
-        out_shape=jax.ShapeDtypeStruct((d * d, B), m2.dtype),
-        grid=grid,
-        in_specs=[pl.BlockSpec((d * d, TB), lambda i: (0, i))],
-        out_specs=pl.BlockSpec((d * d, TB), lambda i: (0, i)),
-    )(m2)
-
-
-def spd_inverse_pallas(m: jnp.ndarray) -> jnp.ndarray:
-    """Pallas-fused batched SPD inverse.  [B, d, d] -> [B, d, d]; B is padded
-    to the tile size internally (pad blocks = identity)."""
-    B, d = m.shape[0], m.shape[-1]
-    TB = 2048
-    Bp = ((B + TB - 1) // TB) * TB
-    m2 = m.reshape(B, d * d)
-    if Bp != B:
-        eye = jnp.broadcast_to(jnp.eye(d, dtype=m.dtype).reshape(1, d * d),
-                               (Bp - B, d * d))
-        m2 = jnp.concatenate([m2, eye], axis=0)
-    out = _spd_inverse_pallas_impl(m2.T, d)
-    return out.T[:B].reshape(B, d, d)
-
-
 def spd_inverse(m: jnp.ndarray) -> jnp.ndarray:
-    """Batched SPD inverse — default backend.
+    """Batched SPD inverse — default backend (the unrolled form).
 
-    Measured on the session TPU (f32):
+    On an NVIDIA H100 80GB HBM3 (700 W power limit; ``chip_smoke.py``
+    phase 5, f32, median of 20 jitted calls on the host clock, which
+    includes dispatch), two runs on two machines:
 
-    ==========  ========  ============  ==========  ========
-    stack       d          linalg.inv   unrolled    pallas
-    ==========  ========  ============  ==========  ========
-    [20k,6,6]   6          33.6 ms      0.68 ms     6.3 ms
-    [131k,6,6]  6         218.6 ms      0.88 ms     1.7 ms
-    ==========  ========  ============  ==========  ========
+    ============  ===============  =================
+    stack         unrolled (ms)    jnp.linalg.inv
+    ============  ===============  =================
+    [20480,6,6]   0.198 / 0.235    0.232 / 0.294
+    [131072,6,6]  0.466 / 0.600    0.588 / 0.644
+    [4096,3,3]    0.171 / 0.222    0.235 / 0.170
+    ============  ===============  =================
 
-    The unrolled form wins everywhere: XLA fuses ~d³/3 [B]-wide elementwise
-    streams into a handful of VPU kernels with no layout change, while the
-    Pallas path pays two transposes (streams-major tiling) plus extra
-    dispatches.  Kept as :func:`spd_inverse_pallas` (equivalence-tested) for
-    future shapes where single-kernel fusion may matter."""
+    Both agree with a float64 inverse to <= 4.7e-7 relative.  The gaps are
+    within dispatch cost and flip between runs at d=3; neither form has
+    been timed from a device trace yet, so the default is unchanged."""
     return spd_inverse_unrolled(m)

@@ -1,17 +1,17 @@
-"""Batched SE(2)/SE(3) Lie-group operations — the TPU-native analog of the
+"""Batched SE(2)/SE(3) Lie-group operations — the batched analog of the
 reference's pose substrate (MRPT ``CPose2D``/``CPose3D`` composition and the
 ``SE_traits<2/3>`` pseudo-exponential retraction; see SURVEY.md L0 and
 ``include/srba/models/kf2kf_poses.h`` in the public MRPT/srba layout).
 
-Design notes (TPU-first, not a port):
+Design notes (batched-device first, not a port):
 
 * Everything here is shape-polymorphic over leading batch dimensions and built
   from pure ``jnp`` primitives, so it vmaps/jits/shards freely.  Poses are
   stored as flat arrays — SE(2) as ``[..., 3] = (x, y, theta)`` and SE(3) as
   ``[..., 7] = (tx, ty, tz, qw, qx, qy, qz)`` (unit quaternion, scalar first).
   Quaternions beat 3x3 matrices here: compose chains along spanning-tree paths
-  are long sequences of tiny products on the VPU, and 4-wide state halves the
-  HBM traffic of 9-wide rotation matrices.
+  are long sequences of tiny elementwise products, and 4-wide state halves
+  the memory traffic of 9-wide rotation matrices.
 * The retraction is the MRPT-style **pseudo-exponential**: the translational
   part of the tangent is applied directly (no V-matrix coupling), the
   rotational part through the SO(2)/SO(3) exponential.  The optimizer computes
@@ -19,7 +19,7 @@ Design notes (TPU-first, not a port):
   so retraction and Jacobians are consistent by construction.
 * No data-dependent control flow: angle wrapping uses ``atan2``; quaternion
   exp/log use the ``sinc``-style Taylor switch via ``jnp.where`` on a safe
-  denominator, which XLA fuses into straight-line VPU code.
+  denominator, which XLA fuses into straight-line elementwise code.
 """
 
 from __future__ import annotations

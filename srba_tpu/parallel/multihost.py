@@ -3,11 +3,11 @@
 The reference is single-process/single-threaded (SURVEY.md §3.1: no MPI /
 NCCL / threads anywhere); multi-host operation is the rebuild's genuinely
 new axis (§8 M4, BASELINE.json north star "≥70% linear scaling ... multi-host
-pod slice").  The TPU-native answer to "NCCL/MPI" is:
+pod slice").  The JAX-native answer to "NCCL/MPI" is:
 
 * ``jax.distributed.initialize`` — one JAX process per host, all chips in
-  one global view; XLA lowers ``psum``/``all_gather`` onto ICI within a
-  slice and DCN across hosts.  Nothing in the solver code changes: the
+  one global view; XLA lowers ``psum``/``all_gather`` onto the backend's
+  collectives (NCCL on GPUs, gloo on the CPU test rings).  Nothing in the solver code changes: the
   obs-sharded LM (``parallel/sharding.py``), the window-sharded sweep
   (``solver/multi_window.py``) and the edge-sharded PGO
   (``solver/global_graphslam.py``) all run unmodified over a *global* mesh —
@@ -19,7 +19,8 @@ pod slice").  The TPU-native answer to "NCCL/MPI" is:
   list) arrives at ONE host — the coordinator (process 0).  Every keyframe
   is encoded into a fixed-shape wire record and broadcast to all processes
   through the device fabric (``multihost_utils.broadcast_one_to_all`` — a
-  psum under the hood, riding ICI/DCN, not a side-channel socket).  Every
+  psum under the hood, riding the device collectives, not a side-channel
+  socket).  Every
   process then replays the record into its local replica of the host graph
   (SoA tables + spanning trees + ECP), so all hosts take bit-identical
   topology decisions with zero further messages.  The graph is tiny

@@ -5,12 +5,12 @@ is the genuinely new axis: **observation-sharded data parallelism with a
 distributed Schur reduction**.  Observations of a window are partitioned over
 the mesh's ``obs`` axis; every device evaluates residuals/Jacobians for its
 shard and the partial normal equations ``(H_p, g_p, H_f, g_f, H_pf)`` are
-``psum``-reduced over ICI (inserted inside the jitted LM loop by
+``psum``-reduced across devices (inserted inside the jitted LM loop by
 ``make_solver_impl`` when ``cfg.axis_name`` is set).  The reduced camera
 system is solved replicated on all devices — it is tiny (window-bounded), so
 replication beats a distributed Cholesky at these sizes.
 
-Larger-scale sharding (landmark blocks via reduce_scatter, multi-host DCN
+Larger-scale sharding (landmark blocks via reduce_scatter, multi-host
 sync of the host graph) layers on top of this entry point.
 """
 

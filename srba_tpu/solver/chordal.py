@@ -16,7 +16,7 @@ averaging, the same relaxation SE-Sync/chordal-init literature uses):
    untouched).  The normal equations are graph-sparse; they are solved
    MATRIX-FREE with Jacobi-preconditioned CG — per iteration two batched
    ``[E, d, d]`` matmuls and two ``segment_sum`` scatters, the exact same
-   TPU-friendly skeleton as the PGO's Hv.  Each ``M_k`` is then projected to
+   static-shape skeleton as the PGO's Hv.  Each ``M_k`` is then projected to
    SO(d) (closed form for d=2; batched SVD for d=3).
 2. **Translation recovery.**  With rotations fixed, the translation
    constraints ``t_b - t_a = R_a t_ab`` are linear: one more Jacobi-CG on

@@ -1,6 +1,6 @@
 """Jitted Levenberg-Marquardt with Schur-complement landmark marginalization.
 
-This is the TPU-native rebuild of the reference solver stack (public MRPT/srba
+This is the batched-device rebuild of the reference solver stack (public MRPT/srba
 layout; SURVEY.md §4.2): ``optimize_edges``'s LM outer loop
 (``impl/lev-marq*``), the Jacobian engine (``impl/jacobians.h``), residuals
 (``impl/reprojection_errors.h``), sparse-block Hessian assembly
@@ -17,14 +17,13 @@ Design (deliberately not a port):
   Jacobian wrt every path edge's tangent and the landmark — the closed-form
   chain rule, derived by the compiler, batched over all observations.
 * Within a bounded window everything is DENSE: the pose Jacobian is
-  scattered (one-hot einsum — an MXU matmul, not an XLA scatter) into
+  scattered (one-hot einsum — a matmul, not an XLA scatter) into
   ``[N*od, E*pdof]`` and the reduced camera system is formed by plain
   matmuls; landmark blocks stay batched ``[L, ldof, ldof]`` and are inverted
-  by the unrolled batched ``spd_inverse`` (``ops/block_linalg.py`` — 46x
-  faster than ``jnp.linalg.inv`` at these shapes).  Sparsity across the
-  *map* is
-  delivered by the bounded window (the SRBA thesis), not by sparse matrix
-  storage — the MXU eats small dense systems for free.
+  by the unrolled batched ``spd_inverse`` (``ops/block_linalg.py``).
+  Sparsity across the *map* is delivered by the bounded window (the SRBA
+  thesis), not by sparse matrix storage.  Whether the one-hot design still
+  beats the segmented backend on the GPU is open (ROADMAP S2).
 * The LM loop is a ``lax.while_loop`` over fixed-shape state: one device
   dispatch optimizes a whole keyframe's window.
 * Masking convention: padded/fixed rows and columns carry weight 0; their
@@ -34,13 +33,13 @@ Design (deliberately not a port):
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Any, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from srba_tpu.models.landmarks import LANDMARK_TYPES
 from srba_tpu.models.observations import OBSERVATION_MODELS
@@ -49,7 +48,8 @@ from srba_tpu.ops.lie import GROUPS
 from srba_tpu.ops.robust import pseudo_huber_cost, pseudo_huber_weight
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class WindowBatch:
     """Padded, fixed-shape device view of one optimization window."""
 
@@ -95,12 +95,11 @@ class SolverConfig:
     max_depth: int                 # D: padded spanning-tree path length
     # Solver engine — analog of the reference's three solver selectors
     # (``solver_LM_schur_dense_cholesky`` / ``..._schur_sparse_cholesky`` /
-    # ``..._no_schur_sparse_cholesky``).  On TPU the window system is small
-    # and DENSE always wins (the MXU eats it; sparse Cholesky would strand
-    # the solve on scalar pointer-chasing), so the two variants offered are
-    # Schur-marginalized vs full-system dense Cholesky; the reference's
-    # sparse backends are intentionally not replicated (design note in
-    # module docstring).
+    # ``..._no_schur_sparse_cholesky``).  The window system is small and
+    # bounded, so the two variants offered are Schur-marginalized vs
+    # full-system DENSE Cholesky (a sparse Cholesky would strand the solve
+    # on scalar pointer-chasing); the reference's sparse backends are
+    # intentionally not replicated (design note in module docstring).
     solver: str = "schur_dense_cholesky"   # | "no_schur_dense_cholesky"
     use_sensor_pose: bool = False
     use_robust_kernel: bool = False
@@ -117,22 +116,18 @@ class SolverConfig:
     # giving up — 3 was observed to strand hard loop-closure windows with
     # the step still too long (err frozen at init).
     max_consec_rejects: int = 6
-    # Normal-equation reduction backend (MEASURED decision, round 5):
+    # Normal-equation reduction backend:
     # * "onehot" (default) — scatter the per-depth Jacobian blocks into a
     #   DENSE [N*od, E*pdof] window Jacobian with a one-hot contraction,
     #   then plain matmuls.  The dense intermediate costs N*od*E*pdof
-    #   floats of HBM traffic per iteration, but it rides the MXU.
+    #   floats of device-memory traffic per iteration.
     # * "segmented" — batched per-depth-pair block products
     #   [N, D, D, pdof, pdof] + segment-sums keyed by the path-edge index
     #   pairs; never materializes the dense Jacobian (half the counted
-    #   bytes, 1/5 the flops at E=256/N=16384)... and is STILL SLOWER on
-    #   TPU (measured same-session A/B, real v5e: config#3 bucket 26.7 vs
-    #   39.2 ms, large window 283 vs 341 ms): XLA lowers the E^2-segment
-    #   scatter-add far below HBM streaming rate, while the one-hot
-    #   matmuls stream at full MXU/HBM speed.  Kept as an
-    #   equivalence-tested alternative (tests/test_solver_variants.py) —
-    #   the measured proof that the dense-onehot design is the right TPU
-    #   mapping at every window size.
+    #   bytes, 1/5 the flops at E=256/N=16384), at the price of E^2-segment
+    #   scatter-adds (atomics on the GPU).
+    # Equivalence-tested (tests/test_solver_variants.py); which one is
+    # faster on the GPU is not measured yet (ROADMAP S2/D3).
     neq: str = "onehot"
     # SPMD: name of the mesh axis observations are sharded over (psum of
     # partial normal equations rides this axis); None = single-device.
@@ -140,6 +135,7 @@ class SolverConfig:
 
 
 VALID_SOLVERS = ("schur_dense_cholesky", "no_schur_dense_cholesky")
+VALID_NEQ = ("onehot", "segmented")
 
 
 def _resolve(cfg: SolverConfig):
@@ -147,7 +143,10 @@ def _resolve(cfg: SolverConfig):
         raise ValueError(
             f"unknown solver {cfg.solver!r}; available: {VALID_SOLVERS} "
             "(the reference's sparse-Cholesky engines are intentionally not "
-            "replicated on TPU — see SolverConfig.solver)")
+            "replicated — see SolverConfig.solver)")
+    if cfg.neq not in VALID_NEQ:
+        raise ValueError(f"unknown neq backend {cfg.neq!r}; available: "
+                         f"{VALID_NEQ}")
     return (GROUPS[cfg.pose_group], OBSERVATION_MODELS[cfg.obs_model],
             LANDMARK_TYPES[cfg.lm_type])
 
@@ -302,7 +301,7 @@ def make_solver_impl(cfg: SolverConfig):
 
         if cfg.neq == "onehot":
             # Scatter path-edge blocks into the dense window Jacobian with
-            # a one-hot contraction (an MXU matmul; XLA scatters serialize).
+            # a one-hot contraction (a matmul instead of a scatter-add).
             onehot = jax.nn.one_hot(b.path_edge, E, dtype=r.dtype)  # [N,D,E]
             Jp = jnp.einsum("nodp,nde->noep", Jp_blocks, onehot)
             Jp = Jp * b.edge_opt[None, None, :, None]
@@ -314,7 +313,7 @@ def make_solver_impl(cfg: SolverConfig):
         else:
             # Segmented: per-depth-pair block products + segment-sums keyed
             # by the path-edge indices — never materializes the [N*od, P]
-            # dense Jacobian (the HBM wall at large windows).  Padded path
+            # dense Jacobian (the memory wall at large windows).  Padded path
             # slots contribute exactly-zero blocks (their step is the
             # identity independent of eps), so their index-0 targets are
             # unaffected.
@@ -339,7 +338,7 @@ def make_solver_impl(cfg: SolverConfig):
                 num_segments=L * E).reshape(L, P, ldof)
         # Distributed Schur reduction: sum partial normal equations over the
         # observation-sharded mesh axis in ONE packed all-reduce round
-        # (ICI collectives; SURVEY.md §3.1).
+        # (SURVEY.md §3.1).
         Hp, gp, Hf, gf, Hpf = _psum_packed(Hp, gp, Hf, gf, Hpf)
 
         if b.edge_prior is not None:
@@ -424,16 +423,16 @@ def make_solver_impl(cfg: SolverConfig):
         return group.retract(edge_pose, dp), lmt.retract(lm_state, df)
 
     def solve(b: WindowBatch):
-        # Trace-time precision pin: TPU's default matmul path computes f32
-        # contractions as one bf16 pass with f32 accumulation (~3 decimal
-        # digits of input mantissa).  The normal equations / Schur products
-        # square the condition number, so bf16-grade products visibly noise
-        # the optimized state: landmark mirrors fed to the closure
-        # bootstrap drift, marginal fits flip to rejection, and the 5k-KF
-        # mono run starved (12 closures, ATE 5.5 on TPU vs 24 closures,
-        # ATE 0.8 for the bit-identical pipeline on CPU f32).  "highest"
-        # forces true-f32 (3-pass bf16) matmuls; the windows are small and
-        # HBM-bound, so the extra passes are latency-free in practice.
+        # Trace-time precision pin: on the GPU a float32 matmul may run in
+        # TF32 by default (10-bit mantissa, ~3 decimal digits of input).
+        # The normal equations / Schur products square the condition
+        # number, so reduced-precision products visibly noise the
+        # optimized state: landmark mirrors fed to the closure bootstrap
+        # drift, marginal fits flip to rejection, and the 5k-KF mono run
+        # starved of closures (12 vs 24, ATE 5.5 vs 0.8 for the same
+        # pipeline at full f32) when an accelerator's default precision
+        # was used.  "highest" keeps these products in true f32 (the FP32
+        # units, not the tensor cores); its cost on the GPU is ROADMAP S3.
         with jax.default_matmul_precision("highest"):
             return _solve_body(b)
 

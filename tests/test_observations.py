@@ -1,5 +1,5 @@
 """Observation-model tests: h/inverse roundtrips, residual semantics, and
-AD-Jacobian vs finite-difference cross-checks — the TPU analog of the
+AD-Jacobian vs finite-difference cross-checks — the batched analog of the
 reference's debug-mode analytic-vs-numeric Jacobian verification
 (SURVEY.md §5, "Jacobian correctness")."""
 
